@@ -1,13 +1,13 @@
-"""graphaibench_tpu — a TPU-native graph-AI framework.
+"""graphaibench_tpu — a graph-AI framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
+A from-scratch JAX/XLA rebuild of the capability surface of
 GraphAIBench (C++/OpenMP/CUDA/MPI/NVSHMEM benchmark suite): CSR graph
 runtime sharing the reference's binary on-disk format, full-batch GNN
 training (GCN / GraphSAGE / GAT / GGNN), GraphSAINT sampling, the graph
 analytics kernel family (TC, BFS, SSSP, PR, CC, BC, k-core, coloring,
 CF-SGD, sampling), graph partitioning + compression tooling, and
 multi-chip/multi-host scaling via edge-partitioned graphs with halo
-exchange over ICI/DCN.
+exchange between devices.
 
 Subpackages
 -----------

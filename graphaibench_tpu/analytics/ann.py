@@ -2,8 +2,8 @@
 
 The reference's ANN benchmark (src/nearest_neighbor_search/ann.h:5-24)
 builds random embeddings and answers queries; its solvers are stubs. The
-TPU version is a real brute-force exact kNN: one (Q, D) x (D, N) matmul
-on the MXU + top-k — the speed-of-light dense formulation."""
+version here is a real brute-force exact kNN: one (Q, D) x (D, N) matmul
++ top-k — the dense formulation."""
 
 from __future__ import annotations
 

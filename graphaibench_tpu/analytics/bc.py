@@ -2,7 +2,7 @@
 
 The reference's BCSolver (src/centrality/omp_base.cc:8-110) runs a
 parallel BFS recording depth + path counts, then a backward dependency
-accumulation over depth buckets with bitmap successors. The TPU version
+accumulation over depth buckets with bitmap successors. This version
 keeps the same two phases but each is a full edge-parallel scatter pass
 inside lax.while_loop — depths replace buckets, masks replace bitmaps.
 """

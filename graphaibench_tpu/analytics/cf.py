@@ -4,8 +4,8 @@ Same update rule as the reference's gather-apply two-phase SGD
 (src/embedding/omp_base.cc:15-77, defaults main.cc:6-10: K=20,
 lambda=0.001, step=3.5e-7, max_iters=5): per iteration every vertex
 accumulates err[u] = sum over ratings (r_uv - <p_u, p_v>) * p_v, then
-p_u += step * (-lambda * p_u + err[u]). On TPU the per-edge estimate is
-an SDDMM and the accumulation a segment-sum — both MXU/VPU friendly."""
+p_u += step * (-lambda * p_u + err[u]). Here the per-edge estimate is
+an SDDMM and the accumulation a segment-sum."""
 
 from __future__ import annotations
 

@@ -9,11 +9,11 @@ is the minimum over its vertices of the number of distinct graph vertices
 that appear in that role across all embeddings — the anti-monotone
 measure used by GraMi/Pangolin-style miners.
 
-TPU-first formulation: every role-qualification predicate is a dense
+Dense formulation: every role-qualification predicate is a dense
 matrix expression —
   * edge roles come straight from the NLF table,
   * wedge-end roles from one masked SpMM over the NLF indicator,
-  * triangle roles from diag(A D_b A D_c A), two MXU matmuls per label
+  * triangle roles from diag(A D_b A D_c A), two matmuls per label
     pair —
 so the whole miner is a handful of batched matmuls instead of the
 per-embedding exploration + hash maps of CPU miners.

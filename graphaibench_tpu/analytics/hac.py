@@ -50,7 +50,7 @@ def hac(dist: np.ndarray, linkage: str = "average") -> np.ndarray:
 
 
 def hac_from_embeddings(x: np.ndarray, linkage: str = "average") -> np.ndarray:
-    """Euclidean-distance HAC over row vectors (the MXU-friendly distance
+    """Euclidean-distance HAC over row vectors (the matmul-friendly distance
     matrix build: |a-b|^2 = |a|^2 + |b|^2 - 2ab)."""
     sq = np.sum(x * x, axis=1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)

@@ -7,8 +7,8 @@ set-operation plan per pattern) but no benchmark on top of it. Here the
 descriptor is reimplemented *and* given a real solver: exact 3-motif and
 4-motif counts.
 
-TPU-first formulation: every 4-vertex motif count is a closed-form
-expression in dense-adjacency matmuls — the whole counter rides the MXU
+Dense formulation: every 4-vertex motif count is a closed-form
+expression in dense-adjacency matmuls — the whole counter is matmuls
 (A², CᵀC Gram over per-edge common-neighborhood indicators) instead of
 the reference's per-vertex set-intersection plans. Counts are of
 *non-induced* subgraphs (each vertex subset counted once per embedding up
@@ -16,7 +16,7 @@ to automorphism), with an induced conversion provided; both are verified
 against a brute-force enumeration oracle in tests.
 
 Graphs up to a few tens of thousands of vertices fit the dense path (n²
-floats in HBM); triangle/wedge counts additionally work at any scale via
+floats in device memory); triangle/wedge counts additionally work at any scale via
 the sparse ``tc.triangle_count`` machinery.
 """
 
@@ -124,7 +124,7 @@ def motif_counts(g: CSRGraph, k: int, *, edge_chunk: int = 4096) -> dict:
       tri_e = A2 ∘ A                  (triangles through each edge)
       24·K4 = Σ A ∘ (CᵀC),  C rows = a_u ∘ a_v per directed edge
 
-    which keeps the counter on the MXU end to end (the reference instead
+    which keeps the counter in matmuls end to end (the reference instead
     derives per-pattern set-intersection plans, pattern.cc:143–166, and
     runs them on AVX/warp set ops).
     """

@@ -1,9 +1,9 @@
-"""On-device (TPU) StreamVByte adjacency decoding.
+"""On-device StreamVByte adjacency decoding.
 
 The reference decodes compressed adjacency *inside* GPU kernels
 (src/structure/vbyte_decoder.cuh, cgr_decoder.cuh, used by
 tc_gpu_compressed.cu / bfs_main.cu) so traversal runs straight off the
-compressed graph. The TPU equivalent here decodes the whole compressed
+compressed graph. The equivalent here decodes the whole compressed
 edge stream to CSR **on device** with pure vectorized ops — every step is
 a gather or a (segmented) cumulative sum over static shapes, so XLA
 compiles it to a handful of streaming kernels with no scalar loop:
@@ -54,15 +54,12 @@ def streamvbyte_decode_device(words: jnp.ndarray, word_offsets: jnp.ndarray,
     offsets; degrees: (nv,) int32. Returns (row_ptr (nv+1,), col_idx
     (ne,)) int32 device arrays.
 
-    Performance notes (measured, TPU v5 lite, rmat17 / 3.8M edges; 48M
-    edges/s end-to-end, 80 ms): segment ids and all per-vertex->per-edge
-    broadcasts use scatter+cumsum, never gathers (a searchsorted for the
-    segment ids alone costs 460 ms; each (ne,)-sized gather ~30 ms vs
-    ~10 ms for a cumsum); per-vertex fields travel in ONE packed row
-    gather (the gather engine is row-rate-bound, so a (nv,3) row costs
-    the same as a scalar); stream reads are word/word-pair gathers +
-    shifts (byte-granular gathers measured 2.3x slower). First (naive
-    searchsorted + byte gathers) version: 5M edges/s — 10x.
+    Design notes (chosen on another chip; not yet measured on the
+    H100): segment ids and all per-vertex->per-edge broadcasts use
+    scatter+cumsum, never gathers or a searchsorted; per-vertex fields
+    travel in ONE packed row gather instead of one gather per field;
+    stream reads are word/word-pair gathers + shifts, not byte-granular
+    gathers.
     """
     degrees = degrees.astype(jnp.int32)
     row_ptr = jnp.concatenate(
@@ -82,9 +79,8 @@ def streamvbyte_decode_device(words: jnp.ndarray, word_offsets: jnp.ndarray,
         1, mode="drop", indices_are_sorted=True)
     v = jnp.cumsum(bump, dtype=jnp.int32)
 
-    # the TPU gather engine is row-rate-bound, so per-vertex values are
-    # packed into one matrix and fetched with a single row gather per
-    # edge instead of one gather per field
+    # per-vertex values are packed into one matrix and fetched with a
+    # single row gather per edge instead of one gather per field
     key0 = base + (4 if count_word else 0)
     pervertex = jnp.stack(
         [row_ptr[:nv],                             # first edge slot
@@ -95,8 +91,8 @@ def streamvbyte_decode_device(words: jnp.ndarray, word_offsets: jnp.ndarray,
     seg_first, key_start, data_start = pv[:, 0], pv[:, 1], pv[:, 2]
     i = e - seg_first
 
-    # 2-bit byte-length codes from the key region (word read + shift —
-    # byte-granular gathers measured 2.3x slower)
+    # 2-bit byte-length codes from the key region (word read + shift,
+    # not a byte-granular gather)
     ka = key_start + (i >> 2)
     kw = words[ka >> 2].astype(jnp.uint32)
     key_byte = ((kw >> ((ka & 3) * 8).astype(jnp.uint32)) & 0xFF).astype(jnp.int32)
@@ -168,13 +164,12 @@ def decode_graph_device(vg: VbyteGraph) -> CSRGraph:
 # Unlike StreamVByte's split key/data regions, a VarintGB group's tag
 # byte sits at a position that depends on every previous group's size
 # (vbyte_encoder.cc group layout), so the VALUE decode cannot be flat
-# until every group's tag position is known. The round-4 decoder ran
-# the whole decode as a one-group-per-step lane scan and measured
-# 2.6 M edges/s resident — 14x behind StreamVByte's 36.3 on a
-# near-identical byte format (decode_bench2.json), because each scan
-# step paid 5 dependent in-window reads for 4 values.
+# until every group's tag position is known. Running the whole decode
+# as a one-group-per-step lane scan was far behind StreamVByte on a
+# near-identical byte format, because each scan step paid 5 dependent
+# in-window reads for 4 values.
 #
-# Round-5 formulation: only the POSITION CHAIN is serial, and a group's
+# This formulation: only the POSITION CHAIN is serial, and a group's
 # byte length is a pure function of its tag byte (glen = 5 + sum of the
 # four 2-bit codes), so phase 1 walks tags only: one 2x128-byte block
 # row gather per step covers >= 7 worst-case groups, each advanced by a
@@ -209,9 +204,8 @@ def _vgb_tag_chain(blocks, lut, pos, n_groups, gbase, tagpos, trip: int):
     absolute tag-byte position into the flat (G+1,) buffer. One
     (L, 64)-word double-block row gather advances _VGB_SUBS groups —
     each sub-step is one in-row byte pick + one 256-entry LUT lookup.
-    Positions accumulate as scan OUTPUTS and scatter once at the end —
-    the first formulation scattered per sub-step (7 scatters/step) and
-    measured 10.0 M e/s resident at rmat17 (decode_bench_r5.json)."""
+    Positions accumulate as scan OUTPUTS and scatter once at the end,
+    not once per sub-step (7 scatters/step)."""
     g_cap = tagpos.shape[0] - 1
 
     def step(carry, _):
@@ -256,7 +250,7 @@ def _vgb_flat_values(words, tagpos, group_ptr, row_ptr, degrees, *,
     bump = jnp.zeros(e1, jnp.int32).at[group_ptr[1:nv]].add(
         1, mode="drop", indices_are_sorted=True)
     v = jnp.cumsum(bump, dtype=jnp.int32)
-    # per-vertex fields in ONE packed row gather (row-rate-bound engine)
+    # per-vertex fields in ONE packed row gather
     pervertex = jnp.stack(
         [group_ptr[:nv], row_ptr[:nv], degrees.astype(jnp.int32)], axis=1)
     pv = pervertex[v]                                  # (G, 3)

@@ -7,11 +7,11 @@ reference (add_selfloop, orientation, symmetrize, masked subgraph, ...)
 become pure functions in :mod:`graphaibench_tpu.graph.transforms` that
 return new ``CSRGraph`` instances.
 
-Design notes (TPU-first):
+Design notes:
   * ``row_ptr`` is int64 on host to match the on-disk format
     (graph.vertex.bin is 8-byte offsets, reference reader.cpp:414-457),
     but device-side code shards graphs so that per-shard offsets fit in
-    int32 — XLA int64 arithmetic is slow on TPU.
+    int32 (device index arrays are int32 throughout).
   * ``col_idx`` is int32 (the reference's vidType is 4-byte,
     include/graph.h).
   * adjacency lists are kept sorted ascending (the reference sorts /

@@ -5,10 +5,10 @@ structures (include/graph.h + src/common/graph.cc:1025–1120): the
 neighborhood label frequency (NLF) table, per-label vertex frequency, and
 the label reverse index (vertices grouped by label). Pattern descriptors
 can be labeled (src/common/pattern.cc:39–47). This module provides the
-same capabilities TPU-first:
+same capabilities as dense device operations:
 
   * NLF is computed as one SpMM — adjacency times a one-hot label matrix
-    rides the MXU instead of the reference's per-vertex hash maps.
+    replaces the reference's per-vertex hash maps.
   * labeled wedge/triangle counts reduce to matmuls over label-projected
     adjacency slices.
 """
@@ -52,7 +52,7 @@ def neighborhood_label_frequency(g: CSRGraph, labels=None,
                                  device: bool = True) -> np.ndarray:
     """(nv, L) NLF table: entry (v, l) = #neighbors of v with label l.
 
-    On device this is one SpMM against a one-hot label matrix (MXU);
+    On device this is one SpMM against a one-hot label matrix;
     the reference builds per-vertex hash maps (GraphT::computeLabelsFrequency).
     """
     lab = _labels_of(g, labels)
@@ -86,7 +86,7 @@ def nlf_match(nlf_g: np.ndarray, nlf_p: np.ndarray) -> np.ndarray:
 def labeled_triangle_counts(g: CSRGraph, labels=None) -> dict:
     """Exact triangle counts per unordered label triple {la, lb, lc}.
 
-    Dense-MXU formulation: project the adjacency onto per-label column
+    Dense formulation: project the adjacency onto per-label column
     slices and contract — sum over (la<=lb<=lc) of
     tr(A[la,lb] @ A[lb,lc] @ A[lc,la]) with multiplicity handling.
     """

@@ -13,8 +13,8 @@ include/graph_partition.h:10-63):
   edgecut_induced_partition_1d  — each chunk + its 1-hop halo, locally
                                   reindexed with master ranges
                                   (graph_partition.cc:128-182); the
-                                  structural model for TPU halo exchange
-  csr_segmenting                — column-range blocking for cache/VMEM
+                                  structural model for device halo exchange
+  csr_segmenting                — column-range blocking for cache
                                   locality (graph_partition.cc:184-275)
   partition_2d                  — by cluster assignment
                                   (graph_partition.cc:276-360)
@@ -137,7 +137,7 @@ def read_partition(prefix: str, i: int) -> InducedPartition:
 class CsrSegments:
     """Column-range segmented CSR: segment k holds the edges whose dst
     lies in [k*range_width, (k+1)*range_width). Aggregating segment by
-    segment keeps the gathered rows of X inside a cache/VMEM-sized
+    segment keeps the gathered rows of X inside a cache-sized
     window (graph_partition.cc:184-275)."""
 
     segments: list[CSRGraph]

@@ -241,7 +241,7 @@ def locality_order(g: CSRGraph, method: str = "louvain") -> np.ndarray:
 
 
 def dense_adjacency(g: CSRGraph, dtype=np.float32) -> np.ndarray:
-    """Symmetric 0/1 adjacency with zero diagonal (for dense-MXU
+    """Symmetric 0/1 adjacency with zero diagonal (for dense-matmul
     solvers: motif counting, labeled triangles, FSM roles)."""
     a = np.zeros((g.nv, g.nv), dtype=dtype)
     src, dst = g.coo()

@@ -1,6 +1,6 @@
 """Native (C++) host kernels with build-on-first-use ctypes bindings.
 
-The compute path is XLA/Pallas; these native kernels cover the host-side
+The compute path is XLA; these native kernels cover the host-side
 hot loops the reference keeps in C++ (graph building, DAG orientation,
 compression codecs, GraphSAINT sampling). The shared library is compiled
 once with g++ into a cache dir; every entry point has a pure-Python
@@ -234,7 +234,6 @@ def ell_pack(targets, starts, counts, col, eid, sentinel: int,
         if out_counts[i] == 0:
             continue
         # flat (rows*width,) slot arrays — the EllBucket storage layout
-        # (narrow 2-D minors pad to 128 lanes in TPU HBM; see ops.lanes)
         out.append((int(wi),
                     rows_flat[row_off[i]:row_off[i + 1]],
                     nbr_flat[slot_off[i]:slot_off[i + 1]],

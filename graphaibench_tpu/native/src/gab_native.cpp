@@ -1,7 +1,7 @@
 // Native host-side kernels for graphaibench_tpu.
 //
-// The reference framework is 100% C++; the TPU rebuild keeps the compute
-// path in XLA/Pallas but the host-side hot loops that feed it are native:
+// The reference framework is 100% C++; this rebuild keeps the compute
+// path in XLA but the host-side hot loops that feed it are native:
 //   * CSR construction from edge lists (counting sort)
 //   * degree-ordered DAG orientation
 //   * CGR bit-codec encode/decode (same bit format as compress/cgr.py)

@@ -26,8 +26,8 @@ from graphaibench_tpu.ops.rng import glorot_reference
 from graphaibench_tpu.ops.segment import segment_softmax
 from graphaibench_tpu.ops.spmm import sddmm_add, spmm
 
-# f32 MXU accumulation by default: parity with the reference CPU math.
-# Flip to DEFAULT (bf16 inputs) for throughput benchmarking.
+# full f32 products by default: parity with the reference CPU math
+# (DEFAULT precision lets the GPU round f32 inputs to TF32).
 MATMUL_PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -56,9 +56,8 @@ class ModelConfig:
     optimizer: str = "adam"   # any key of nn/optim.OPTIMIZERS
     # rematerialize each gconv layer in the backward pass
     # (jax.checkpoint): trades one extra forward sweep per layer for
-    # not storing its activations — what fits a 3x256 products-scale
-    # stack into 16 GB HBM (the run-sage-products.sh recipe shape,
-    # which otherwise exceeds HBM by ~0.8 GB at compile)
+    # not storing its activations (for the run-sage-products.sh 3x256
+    # recipe shape on a device that cannot hold them)
     remat: bool = False
 
     def __post_init__(self):
@@ -163,8 +162,8 @@ def gat_layer_fwd(p, dg: DeviceGraph, edge_w, x, *, act, cfg, train, key,
     source vertex's edge list, score-weighted aggregation."""
     x = _maybe_dropout(x, cfg.feat_drop, train, key)
     h = matmul(x, p["W_neigh"])
-    sl = h @ p["alpha_l"]
-    sr = h @ p["alpha_r"]
+    sl = matmul(h, p["alpha_l"])
+    sr = matmul(h, p["alpha_r"])
     # edge_w is 1 for ordinary graphs (reference semantics); for padded
     # sampled subgraphs it is the edge-validity mask zeroing fake edges
     needs_scores = return_scores or (

@@ -2,23 +2,19 @@
 
 The reference fuses attention score + softmax + dropout into one CUDA
 kernel (``compute_attn_score_warp``, include/gnn/graph_operations.h:250)
-because materializing per-edge score traffic dominates GAT. The same is
-true on TPU, but the expensive part is different: per-edge (ne,)-sized
-broadcasts of the row max / row denominator (``x[seg]`` gathers at ~30 ms
-per 4M-edge gather) and the scatter-heavy ``jax.ops.segment_*`` row
-reductions.
+because materializing per-edge score traffic dominates GAT. In XLA the
+expensive parts are per-edge (ne,)-sized broadcasts of the row max / row
+denominator (``x[seg]`` gathers) and the scatter-heavy
+``jax.ops.segment_*`` row reductions.
 
 This op removes them: inside each ELL degree bucket the normalizers are
 indexed **per row** (an (R,)-sized gather, ~30x fewer lookups), so the
 softmax fuses into the aggregation pass and no normalized score vector is
-ever written to HBM on the forward path. The backward pass is an exact
-custom VJP (softmax adjoint + transposed-permutation SpMM + SDDMM),
+ever written to device memory on the forward path. The backward pass is
+an exact custom VJP (softmax adjoint + transposed-permutation SpMM + SDDMM),
 mirroring the reference's hand-written GAT backward
 (gat_aggregator.cpp:106-175) with the csr2cs​c replaced by the
 host-precomputed edge permutation.
-
-Measured (rmat17, 4M edges, F=128): unfused segment_softmax + spmm
-forward 190 ms -> fused 75 ms; see bench extras gat_epoch_s.
 """
 
 from __future__ import annotations
@@ -77,8 +73,8 @@ def _row_denom_ell(g: DeviceGraph, logits, m):
 def _norm_consts(g: DeviceGraph, logits):
     m = _row_reduce_ell(g, logits, "max")
     m = jnp.where(jnp.isfinite(m), m, 0.0)
-    # NORMAL f32 floor: 1e-38 is subnormal and XLA flushes it to zero on
-    # TPU, making empty rows (padded sampled subgraphs) produce inf here
+    # NORMAL f32 floor: 1e-38 is subnormal and XLA may flush it to zero,
+    # making empty rows (padded sampled subgraphs) produce inf here
     # and NaN downstream (same rule as the v2 path below)
     z = 1.0 / jnp.maximum(_row_denom_ell(g, logits, m), 1e-30)
     return m, z
@@ -103,8 +99,7 @@ def _fwd(g, logits, edge_w, x):
 
 def _scores_soft(g: DeviceGraph, logits, m, z):
     """Materialize the softmax scores (backward only). m and z travel in
-    one packed row gather — the gather engine is row-rate-bound, so an
-    (nv, 2) row costs the same as a scalar."""
+    one packed (nv, 2) row gather instead of two scalar gathers."""
     mz = jnp.stack([m, z], axis=1)[g.edge_src]     # (ne, 2)
     return jnp.exp(logits - mz[:, 0]) * mz[:, 1]
 
@@ -140,12 +135,11 @@ gat_attention_spmm.defvjp(_fwd, _bwd)
 # ---------------------------------------------------------------------------
 #
 # v1 materializes (ne,) logits via sddmm_add (2 slot gathers + adjoint
-# row reductions, ~240 ms/epoch at rmat17) and then re-gathers them in
-# every ELL pass (3 fwd passes). v2 exploits three structural facts:
+# row reductions) and then re-gathers them in every ELL pass (3 fwd
+# passes). v2 exploits three structural facts:
 #
-#  1. PACKING: the gather engine is row-rate-bound (~512 B rows free),
-#     so sr rides as an extra feature column of h — the aggregation
-#     gather serves the logit computation for free, and z (the softmax
+#  1. PACKING: sr rides as an extra feature column of h — the
+#     aggregation gather serves the logit computation, and z (the softmax
 #     denominator) accumulates as an extra output column of the same
 #     scatter. Forward needs ONE packed pass + one scalar rowmax pass.
 #  2. EXACT ROWMAX VIA MONOTONICITY: leaky_relu is monotone, so
@@ -163,19 +157,15 @@ gat_attention_spmm.defvjp(_fwd, _bwd)
 # with the cuSPARSE csr2csc adjoint replaced by bucket reuse.
 
 
-
-
-# the TPU gather engine is row-rate-bound (~250 M rows/s) for rows of
-# 8..512 BYTES and drops ~3.7x past 512 B (measured, round 2); pure
-# scalar gathers run at HALF the row rate (115 vs 232 M/s), so even a
-# 2-column packed table doubles scalar-gather throughput.
+# packed gathers in column chunks of at most this many bytes per row:
+# chosen on another chip whose gather unit fell off past 512-byte rows;
+# not yet measured on the H100 (ROADMAP design item 2)
 _GATHER_MAX_BYTES = 512
 
 
 def _col_chunks(total: int, itemsize: int = 4):
     """Split a packed gather of ``total`` columns of ``itemsize`` bytes
-    into equal chunks that each stay within the 512-byte fast-gather
-    row budget."""
+    into equal chunks that each stay within _GATHER_MAX_BYTES per row."""
     max_cols = max(_GATHER_MAX_BYTES // itemsize, 1)
     n = -(-total // max_cols)
     step = -(-total // n)
@@ -183,22 +173,17 @@ def _col_chunks(total: int, itemsize: int = 4):
 
 
 # Gathered-operand dtype on LARGE graphs (shared policy: the v2 passes
-# here, ops.spmm.spmm_ell, and the sharded _ell_apply twins): bf16 halves
-# bytes/row, so the (1+F)-column packed table fits ONE <=512 B gather
-# chunk where f32 needs two (the engine is ROW-rate-bound, so chunk
-# count ~= cost), and the per-segment gather view drops from ~66 MB to
-# ~33 MB — back inside the measured <=64 MB fast-locality window.
-# Accumulation stays f32 (bf16 operands promote on use); only the
+# here and the sharded _ell_apply twins): bf16 halves bytes/row, so the
+# (1+F)-column packed table fits ONE <=512 B gather chunk where f32
+# needs two. Accumulation stays f32 (bf16 operands promote on use); only the
 # gathered h / attention-scalar values round to bf16. Gated on the same
 # threshold as the seg-ELL layout so small-graph parity stays exact.
 V2_GATHER_BF16 = True
 
 
-# default threshold 2^17: at rmat17 the f32 packed (1+F)/(4+F) tables
-# need TWO <=512 B gather chunks per slot where bf16 needs one —
-# measured 206 -> 161 ms/epoch (tools/results/gat17_bf16.json), meeting
-# the <=170 ms round-3 target. Small graphs (reference-parity tests)
-# stay exact f32.
+# default threshold 2^17, chosen on another chip where one bf16 gather
+# chunk beat two f32 ones from this size; not yet measured on the H100.
+# Small graphs (reference-parity tests) stay exact f32.
 V2_BF16_MIN_NV = 1 << 17
 
 
@@ -229,8 +214,7 @@ def _gather3(xs, nbr_flat, width):
     """(r, W, c) gather via a 2-D view of the flat INDEX array. The
     index reshape is a small padded transient (~(1/W)(128/c) of the
     gathered bytes); reshaping the GATHERED data instead materializes a
-    copy of the whole operand (+20-50% on the rmat20 SpMM A/B,
-    tools/results/spmm_ab_20.json)."""
+    copy of the whole operand."""
     return xs[nbr_flat.reshape(-1, width)]
 
 
@@ -238,11 +222,9 @@ def _seq(acc, nbr, enable):
     """Tie a bucket chunk's gather indices to the running accumulator.
     Without this artificial dependency XLA hoists EVERY bucket/chunk
     gather before the first scatter — at rmat20 that kept ~128 GB of
-    (r, W, F) stages live ('Ran out of memory in memory space hbm.
-    Used 128.41G of 15.75G', measured). The barrier forces
-    one-stage-at-a-time liveness. It costs ~16% at rmat17 (hoisting =
-    overlap there), so it is gated on graph size — the same threshold
-    as the seg-ELL layout switch."""
+    (r, W, F) stages live. The barrier forces one-stage-at-a-time
+    liveness. Hoisting overlaps work on smaller graphs, so it is gated
+    on graph size — the same threshold as the seg-ELL layout switch."""
     if not enable:
         return acc, nbr
     acc, nbr = jax.lax.optimization_barrier((acc, nbr))
@@ -251,14 +233,15 @@ def _seq(acc, nbr, enable):
 
 # Narrow-bucket W-reductions are UNROLLED into 2-D slice ops: for any
 # 3-D reduction over a small middle dim, XLA materializes a transposed
-# copy with the middle dim minormost and T(8,128)-padded — a width-4
-# bucket chunk became a single 13.8 GB allocation (32x padding) at
-# rmat20. 2-D slices have no such layout freedom.
+# copy with the middle dim minormost and T(8,128)-padded (32x for a
+# width-4 bucket on tiled device memory). 2-D slices have no such
+# layout freedom.
 _UNROLL_W = 16
 # tighter per-stage cap for the v2 passes on LARGE graphs: two packed
 # column-chunks are live per stage plus outputs, and at rmat20 the
-# default 1 GB stages exhausted runtime HBM (ResourceExhausted at the
-# first epoch); 2^27 elements = 512 MB per gathered chunk
+# default 1 GB stages exhausted device memory on the chip this was
+# tuned on: 2^27 elements = 512 MB per gathered chunk (not yet measured
+# on the H100)
 _V2_STAGE_ELEMS = 1 << 27
 
 
@@ -284,8 +267,7 @@ def _dotw(a, x):
 
 def _sr_rowmax(g: DeviceGraph, sr):
     """Per-row max of the neighbor-side attention scalar. The table is
-    packed to 2 columns: a duplicated scalar column gathers 2x faster
-    than a true scalar gather (row-rate-bound engine, measured)."""
+    packed to 2 columns (see ops.segment.neighbor_reduce)."""
     from graphaibench_tpu.ops.device_graph import seg_sweep
     from graphaibench_tpu.ops.lanes import group_reduce
     from graphaibench_tpu.ops.spmm import bucket_row_chunks
@@ -294,9 +276,8 @@ def _sr_rowmax(g: DeviceGraph, sr):
     out = jnp.full((g.nv,), -jnp.inf, sr.dtype)
 
     def bucket_fn(out, b, _pk, xs):
-        # chunked: the (slots, 2) gather output pads its minor dim to
-        # 128 lanes (64x) — unchunked, one hub bucket's temp was 7.04 GB
-        # at rmat20 (sharded_p1_20.err round 4)
+        # chunked: on tiled device memory the (slots, 2) gather output
+        # pads its minor dim to 128 lanes (64x)
         for clo, chi in bucket_row_chunks(b, 2):
             rows, nbr, eid = b.slot_slice(clo, chi)
             vb = jnp.where(eid == g.ne, -jnp.inf, xs[nbr][:, 0])
@@ -307,10 +288,9 @@ def _sr_rowmax(g: DeviceGraph, sr):
 
 
 def _v2_fwd_pass(g: DeviceGraph, sl, sr, h, m):
-    """Packed pass: gather [sr | h] in <=128-column chunks (each at the
-    full gather row rate; a single >512 B gather is 3.7x slower), logits
-    per slot from chunk 0, online exp, accumulate [sum eb*h | sum eb]
-    in one scatter."""
+    """Packed pass: gather [sr | h] in <=_GATHER_MAX_BYTES column
+    chunks, logits per slot from chunk 0, online exp, accumulate
+    [sum eb*h | sum eb] in one scatter."""
     from graphaibench_tpu.ops.device_graph import SEG_ELL_MIN_NV, seg_sweep
     from graphaibench_tpu.ops.spmm import bucket_row_chunks
 

@@ -1,33 +1,30 @@
 """Lane-packed group reductions over flat ELL slot arrays.
 
-TPU HBM layouts tile the two minor dimensions to (8, 128): a (R, 4)
-int32/f32 array physically occupies (R, 128) — 32x the logical bytes.
-Round 3's rmat20 sharded/frontier runs OOM'd 16 GB HBM on exactly these
-temps ("pad 6.71M->214.84M" in the XLA allocator dump): the narrow ELL
-degree buckets stored neighbor ids, edge ids, and pre-gathered weights
-as (rows, width) matrices with width in {4..64}.
+This layout was chosen for a chip whose device memory tiles the two
+minor dimensions to (8, 128), where a (R, 4) int32/f32 array occupies
+(R, 128) — 32x the logical bytes — and the narrow ELL degree buckets
+(width 4..64) ran out of memory stored as (rows, width) matrices. It
+has not yet been measured on the H100, whose memory is not tiled that
+way (ROADMAP design item 2 decides it from the ledger).
 
-The fix has two halves:
+It has two halves:
 
   * STORAGE: ``EllBucket`` keeps its slot arrays FLAT (rows*width,) —
-    a 1-D array pads only to the tile boundary (~1 KB), so at-rest
-    HBM is the logical size. Gathers index with the flat array and
-    produce (rows*width, F) outputs whose minor dim is the feature
-    chunk (~128 lanes) — also unpadded.
+    a 1-D array needs no padding of a narrow minor dimension. Gathers
+    index with the flat array and produce (rows*width, F) outputs
+    whose minor dim is the feature chunk.
   * REDUCTION: collapsing each row's ``width`` consecutive slots back
     to one value happens here, via shapes whose minor dims stay wide:
 
       - ``group_reduce``: (R*W,) -> (R,) scalar reduction. The flat
-        array is viewed as (n/128, 128) — exactly the physical lane
-        tiling, so the reshape is free — and log2(W) strided-lane
+        array is viewed as (n/128, 128) and log2(W) strided-lane
         halvings combine each W consecutive lanes. No (R, W) array
         ever materializes.
       - ``group_sum_cols``: (R*W, F) -> (R, F) weighted-sum collapse
         via a (R, W, F) view (free for W >= 8; one 2x-padded copy for
         W=4) and a tree of 3-D slice adds — slices, not a reduce op,
-        because XLA materializes middle-dim reduces as a transposed
-        copy with the W dim minormost, T(8,128)-padded (a 13.8 GB
-        allocation at rmat20, measured round 3).
+        because XLA materialized middle-dim reduces as a transposed
+        copy with the W dim minormost, padded to the (8, 128) tile.
 
 All widths the ELL packer emits are powers of two <= 128; other widths
 take a fallback path (still correct, narrower guarantees).
@@ -80,7 +77,7 @@ def group_reduce(flat: jnp.ndarray, width: int, kind: str) -> jnp.ndarray:
     if pad:
         flat = jnp.concatenate(
             [flat, jnp.full((pad,), ident, flat.dtype)])
-    a = flat.reshape(-1, LANES)    # exact physical lane tiling
+    a = flat.reshape(-1, LANES)
     w = width
     while w > 1:
         a = op(a[:, 0::2], a[:, 1::2])

@@ -1,7 +1,7 @@
 """Elementwise / reduction math matching reference semantics.
 
 Counterparts of src/utilities/math_functions.cpp. Dense GEMMs are plain
-jnp.dot (XLA -> MXU); only the ops whose exact semantics matter for
+jnp.dot; only the ops whose exact semantics matter for
 parity are spelled out here (cross-entropy epsilon clamps, masked
 accuracy, dropout scaling).
 """

@@ -2,21 +2,20 @@
 
 out[s] = sum over edges (s -> d) of  w_e * X[d]      (row-gather form)
 
-This is the TPU replacement for the reference's hand-rolled aggregators
+This replaces the reference's hand-rolled aggregators
 (gcn_aggregator.cpp:48-77 CPU loop, graph_operations.h:85-140 warp
 kernels, cuSPARSE csrmm). Three execution strategies:
 
   * ``coo``   — X gather by col_idx + segment_sum over edge_src. Always
                 correct; materializes an (E, F) intermediate.
   * ``ell``   — per degree-bucket dense gather + weighted reduction. XLA
-                fuses gather*weight*sum into one streaming loop, so HBM
+                fuses gather*weight*sum into one streaming loop, so memory
                 traffic is ~ E_padded*F reads + N*F writes (near optimal);
                 power-law skew is handled by the pow-2 bucketing instead
                 of warp-level load balancing.
-  * ``dense`` — scatter w into an N x N dense matrix and use the MXU.
-                Wins for small graphs (N up to a few thousand) where the
-                whole adjacency fits comfortably and the MXU is idle
-                anyway.
+  * ``dense`` — scatter w into an N x N dense matrix and use one
+                matmul, for small graphs (N up to 4096) where the whole
+                adjacency fits comfortably.
 
 ``spmm`` wraps the strategies in a custom VJP: for the structurally
 symmetric graphs GNNs aggregate over, the adjoint is an SpMM on the same
@@ -43,20 +42,16 @@ def spmm_coo(g: DeviceGraph, w: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
                                indices_are_sorted=True)
 
 
-# the TPU gather engine is row-rate-bound for rows up to ~512 bytes and
-# falls off badly beyond; keep each gathered slice within this budget
+# gathered column slices of at most this many bytes per row: chosen on
+# another chip whose gather unit fell off past 512-byte rows; not yet
+# measured on the H100 (ROADMAP design item 2)
 _GATHER_ROW_BYTES = 512
 
 
-# Gathered-operand dtype for the PLAIN/SEG SpMM feature path: f32.
-# Round 3's rmat20 ablation (tools/results/rmat20_sweep.json) showed
-# the bf16-at-scale rounding is a measured PESSIMIZATION here — plain
-# 1243 ms (bf16) vs 1106 ms (f32), seg128k 781 vs 707 ms (f32 10-12%
-# faster): the SpMM gathers whole 512 B rows either way (row-rate-bound
-# engine), so halving bytes buys nothing and the convert pass costs.
-# GAT v2 keeps bf16 (fused_gat._v2_gather_dtype): its packed (1+F)-col
-# table only fits ONE <=512 B gather chunk at bf16. GAB_SPMM_BF16=1
-# re-enables rounding here for ablations.
+# Gathered-operand dtype for the PLAIN/SEG SpMM feature path: f32 (on
+# the chip this was tuned on, bf16 gathers were slower here). GAT v2
+# keeps bf16 (fused_gat._v2_gather_dtype). GAB_SPMM_BF16=1 re-enables
+# rounding here for ablations.
 def _spmm_gather_dtype(g: DeviceGraph, base):
     import os
 
@@ -71,10 +66,9 @@ def _spmm_gather_dtype(g: DeviceGraph, base):
 
 def spmm_ell(g: DeviceGraph, w: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Degree-bucketed ELL path. Requires g.ell buckets. Wide feature
-    matrices are processed in <=512-byte column slices (the measured
-    sweet spot of the TPU gather unit). Gathered operands stay f32
-    (see _spmm_gather_dtype: bf16 rounding measured 10-12% SLOWER on
-    this path at rmat20)."""
+    matrices are processed in <=512-byte column slices
+    (_GATHER_ROW_BYTES). Gathered operands stay f32
+    (_spmm_gather_dtype)."""
     assert g.ell or g.seg_ell is not None, \
         "DeviceGraph built without ELL buckets"
     base = x.dtype
@@ -94,9 +88,10 @@ def spmm_ell(g: DeviceGraph, w: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
 
 # cap on the materialized (rows, W, F) gather per stage: XLA materializes
 # the einsum input, so an unchunked hub bucket on a ~30M-edge graph would
-# need >10 GB and stall. 2^28 PADDED f32 elements = 1 GB per stage
-# (bucket_row_chunks counts f at its 128-lane-padded width).
-# GAB_STAGE_ELEMS_LOG2 overrides — the narrow-F (class-dim) aggregation
+# need >10 GB. 2^28 padded f32 elements = 1 GB per stage
+# (bucket_row_chunks counts f at its 128-lane-padded width). Chosen on
+# another chip; not yet measured on the H100. GAB_STAGE_ELEMS_LOG2
+# overrides — the narrow-F (class-dim) aggregation
 # trades stage count against transient size 8x either way.
 import os as _os
 
@@ -107,12 +102,11 @@ def bucket_row_chunks(b, f: int, cap: int | None = None):
     """Row ranges of an ELL bucket bounded to ``cap`` (default
     _ELL_STAGE_ELEMS) elements of gathered (rows*W, f) data per chunk.
 
-    ``f`` is counted at its TPU lane-padded width (minor dims round up
-    to 128): a (slots, 16) gather output physically occupies
-    (slots, 128), so capping on logical elements let narrow-feature
-    stages grow 8x past the budget — the round-3 rmat20 sharded OOM's
-    two largest allocations were exactly such gathers (F=16 = the
-    class-dim layer, 3.5-7 GB each at 8x expansion)."""
+    ``f`` is counted at its width padded up to 128, as the tiled device
+    memory of the chip this was tuned on stores a (slots, 16) gather
+    output as (slots, 128): capping on logical elements let
+    narrow-feature stages (the class-dim layer) grow 8x past the
+    budget. Not yet measured on the H100."""
     r = b.rows
     cap = cap or _ELL_STAGE_ELEMS
     f_pad = -(-max(f, 1) // 128) * 128
@@ -136,15 +130,14 @@ def _bucket_accumulate(out, b, xs, wb_flat, f):
     """Shared inner stage: flat gather + weight + group collapse +
     scatter-add, chunked to the padded-lane stage budget.
 
-    Collapse kernels, GAB_SPMM_KERNEL (trace-time; rmat20 chip A/B in
-    tools/results/spmm_ab_20.json):
+    Collapse kernels, GAB_SPMM_KERNEL (trace-time):
       * einsum2d (default) — reshape the (rw,) INDEX/weight arrays to
         (r, W) — small padded transients, ~(1/W)(128/F) of the gathered
-        bytes — and gather DIRECTLY into (r, W, F) for the contraction:
-        the round-3 gather shape, with the flat at-rest fix intact.
+        bytes — and gather DIRECTLY into (r, W, F) for the contraction,
+        with the flat at-rest slot arrays intact.
       * einsum — flat gather (rw, F), then reshape the GATHERED data to
         3-D: the reshape materializes a copy of the whole gathered
-        operand (~+20% plain, +50% seg, measured).
+        operand.
       * flat — multiply then ops.lanes.group_sum_cols tree adds
         (slowest, kept for the ablation record)."""
     import os
@@ -170,7 +163,7 @@ def _bucket_accumulate(out, b, xs, wb_flat, f):
             # chunk — no narrow-lane padding (ops.lanes rationale)
             contrib = group_sum_cols(xs[nbr] * wb[:, None], w)
         # add, not set: heavy rows are split across several virtual
-        # rows (same cost as set, measured)
+        # rows
         out = out.at[rows].add(contrib.astype(out.dtype))
     return out
 
@@ -179,12 +172,11 @@ def _spmm_ell_cols(g: DeviceGraph, w, x: jnp.ndarray,
                    out_dtype=None) -> jnp.ndarray:
     """One <=512-byte column slice of the ELL SpMM. ``w`` is a (ne,)
     array (runtime per-edge values, e.g. GAT scores) or a packed
-    per-bucket view (static weights — skips the scalar edge-id gather,
-    which at rmat20 scale cost ~3x the feature gather; see
-    PackedEdgeW). ``out_dtype`` is the accumulator dtype when ``x`` was
+    per-bucket view (static weights — skips the scalar edge-id gather;
+    see PackedEdgeW). ``out_dtype`` is the accumulator dtype when ``x`` was
     rounded for gathering (bf16-at-scale policy). At scale the bucket
-    sweep is a lax.scan over segments (device_graph.seg_sweep — the
-    remote-compile-ceiling fix); padded scan rows contribute nothing
+    sweep is a lax.scan over segments (device_graph.seg_sweep); padded
+    scan rows contribute nothing
     (sentinel edge ids gather weight zero)."""
     from graphaibench_tpu.ops.device_graph import seg_sweep
 
@@ -202,11 +194,11 @@ def _spmm_ell_cols(g: DeviceGraph, w, x: jnp.ndarray,
 
 
 def spmm_dense(g: DeviceGraph, w: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
-    """Materialize the weighted adjacency and hit the MXU."""
+    """Materialize the weighted adjacency and use one matmul."""
     a = jnp.zeros((g.nv, g.nv), dtype=x.dtype)
     a = a.at[g.edge_src, g.col_idx].add(w)
-    # full f32 accumulation: the TPU MXU would otherwise round inputs to
-    # bf16, which breaks allclose parity with the reference CPU path
+    # full f32 products: default precision may round the inputs (TF32
+    # on the GPU), which breaks allclose parity with the reference
     return jnp.dot(a, x, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -216,6 +208,8 @@ _IMPLS = {"coo": spmm_coo, "ell": spmm_ell, "dense": spmm_dense}
 def _pick_impl(g: DeviceGraph, impl: str) -> str:
     if impl != "auto":
         return impl
+    # dense below 4096 vertices: chosen on another chip, where the matrix
+    # unit was otherwise idle; not yet measured on the H100
     if g.nv <= 4096:
         return "dense"
     return "ell" if g.has_ell_layout else "coo"
@@ -310,8 +304,8 @@ def sddmm_dot(g: DeviceGraph, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     compute_scores_grad_warp graph_operations.h).
 
     Chunked over edges: the two (E, F) gathers are materialized by XLA,
-    which at 32M edges x 128 features is 2 x 15.7 GB — past HBM. Each
-    chunk stays under ~1 GB."""
+    which at 32M edges x 128 features is 2 x 15.7 GB. Each chunk stays
+    under ~1 GB."""
     f = max(a.shape[1], 1)
     step = max(1, (1 << 28) // f)
     if g.ne <= step:
@@ -330,7 +324,7 @@ def sddmm_add(g: DeviceGraph, sa: jnp.ndarray, sb: jnp.ndarray) -> jnp.ndarray:
     gat_aggregator.cpp:57-80: a_l.Wh_i + a_r.Wh_j).
 
     Custom VJP: the autodiff adjoint of a (ne,)-gather is a (ne,)-scatter
-    -add, which is slow on TPU; the row sums stream through the ELL
+    -add; the row sums stream through the ELL
     buckets instead (dst side via the host-precomputed transpose
     permutation)."""
     return sa[g.edge_src] + sb[g.col_idx]

@@ -1,13 +1,13 @@
 """Sharding metadata for multi-chip/multi-host full-batch GNN training.
 
-TPU-native replacement for the reference's distribution machinery
+Device-mesh replacement for the reference's distribution machinery
 (NVSHMEM symmetric-heap remote fetches, multigpu_nvshmem.cu:13-160, and
 MPI rank-strided ownership, dist_cpu.cpp:6-75): the graph is
 1-D vertex-partitioned into uniform contiguous blocks (the
 edgecut_induced_partition1D structure, graph_partition.cc:128-182), each
 shard's rows are stored as a locally-reindexed padded CSR, and instead
 of pulling remote adjacency mid-kernel, boundary vertex FEATURES are
-exchanged between layers with one all_to_all over ICI — indices
+exchanged between layers with one all_to_all — indices
 precomputed here on host once.
 
 Everything is padded to identical static shapes and stacked with a
@@ -61,8 +61,8 @@ class ShardedGraph:
     # (nv,): identity-block layout under balance="vertex" (slot == id);
     # under balance="edge" the blocks have unequal vertex counts (equal
     # EDGES instead — rmat hubs concentrate in low ids and uniform
-    # blocks measured 3.6x max/mean edge imbalance at P=16,
-    # weak_scaling_project.json), so vertex-row arrays must scatter
+    # blocks have 3.6x max/mean edge imbalance at P=16), so vertex-row
+    # arrays must scatter
     # through ``perm``
     block_lo: np.ndarray = None     # (P,) int64
     perm: np.ndarray = None         # (nv,) int64 global id -> padded slot
@@ -85,7 +85,7 @@ def build_sharded_graph(
 
     ``balance``: "vertex" (uniform blocks — slot == global id) or
     "edge" (equal-EDGE cuts: block vertex counts vary, rows pad per
-    shard to the largest block; fixes the measured 3.6x max/mean edge
+    shard to the largest block; fixes the 3.6x max/mean edge
     imbalance of uniform blocks on rmat at P=16 at the price of extra
     feature-row padding)."""
     P = num_shards

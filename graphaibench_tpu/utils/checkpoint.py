@@ -1,13 +1,12 @@
 """Training checkpoint/resume.
 
 The reference has NO weight save/load (SURVEY.md §5 — models live and
-die in one process); multi-host training needs real checkpointing, so
-this adds it: orbax when available, with a plain-npz fallback that
-handles arbitrary pytrees of arrays."""
+die in one process); resuming long training runs needs it, so this adds
+it: the leaves of any pytree of arrays in one numpy ``.npz`` per step,
+restored into the structure of a template pytree."""
 
 from __future__ import annotations
 
-import json
 import os
 from typing import Any
 
@@ -15,44 +14,28 @@ import jax
 import numpy as np
 
 
-def _flatten(tree: Any):
-    leaves, treedef = jax.tree.flatten(tree)
-    return leaves, treedef
+def _npz_path(path: str, step: int) -> str:
+    return os.path.join(path, f"step_{step}.npz")
 
 
 def save_checkpoint(path: str, state: Any, *, step: int = 0) -> str:
-    """Save a pytree to ``path`` (directory). Returns the path."""
+    """Save a pytree to ``path`` (directory). Returns the file written."""
     os.makedirs(path, exist_ok=True)
-    try:
-        import orbax.checkpoint as ocp
-
-        ckpt = ocp.StandardCheckpointer()
-        target = os.path.join(os.path.abspath(path), f"step_{step}")
-        ckpt.save(target, state, force=True)
-        ckpt.wait_until_finished()
-        return target
-    except Exception:
-        leaves, treedef = _flatten(state)
-        np.savez(
-            os.path.join(path, f"step_{step}.npz"),
-            *[np.asarray(l) for l in leaves],
-        )
-        with open(os.path.join(path, f"step_{step}.treedef.json"), "w") as f:
-            json.dump({"n": len(leaves), "step": step}, f)
-        return os.path.join(path, f"step_{step}.npz")
+    leaves = jax.tree.leaves(state)
+    target = _npz_path(path, step)
+    np.savez(target, *[np.asarray(leaf) for leaf in leaves])
+    return target
 
 
 def restore_checkpoint(path: str, like: Any, *, step: int = 0) -> Any:
     """Restore into the structure of ``like``."""
-    target = os.path.join(os.path.abspath(path), f"step_{step}")
-    if os.path.isdir(target):
-        import orbax.checkpoint as ocp
-
-        ckpt = ocp.StandardCheckpointer()
-        return ckpt.restore(target, like)
-    npz = np.load(os.path.join(path, f"step_{step}.npz"))
-    leaves, treedef = _flatten(like)
-    new_leaves = [npz[f"arr_{i}"] for i in range(len(leaves))]
     import jax.numpy as jnp
 
-    return jax.tree.unflatten(treedef, [jnp.asarray(l) for l in new_leaves])
+    leaves, treedef = jax.tree.flatten(like)
+    with np.load(_npz_path(path, step)) as npz:
+        if len(npz.files) != len(leaves):
+            raise ValueError(
+                f"checkpoint holds {len(npz.files)} arrays; the template "
+                f"pytree has {len(leaves)} leaves")
+        new = [jnp.asarray(npz[f"arr_{i}"]) for i in range(len(leaves))]
+    return jax.tree.unflatten(treedef, new)

@@ -212,7 +212,7 @@ def test_cc_afforest_rmat():
 def test_cc_afforest_edgeless():
     """nv>0, ne==0: trivially symmetric, so the CLI routes it into the
     afforest branch — must return identity labels, not IndexError on
-    the empty col_idx (round-3 review finding)."""
+    the empty col_idx."""
     from graphaibench_tpu.analytics import connected_components_afforest
     from graphaibench_tpu.graph.csr import from_edges
 

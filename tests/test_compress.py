@@ -142,7 +142,7 @@ def test_cli_permuted_roundtrip(tmp_path):
 
 
 def test_streamvbyte_device_decode(citeseer):
-    """TPU-side decode (compress/device_decode.py) must reproduce the
+    """Device-side decode (compress/device_decode.py) must reproduce the
     host codec bit-for-bit, including the citeseer triangle golden."""
     from graphaibench_tpu.analytics.tc import triangle_count
     from graphaibench_tpu.compress.device_decode import decode_graph_device

@@ -173,9 +173,9 @@ def test_ggnn_forward_matches_numpy_oracle():
 
 
 def test_ggnn_training_trajectory_ell_matches_dense():
-    """GGNN loss-trajectory test (VERDICT r3 weak #9): 5 full train
+    """GGNN loss-trajectory test: 5 full train
     steps through the ELL aggregation path (flat slot gathers + custom
-    VJP + packed weights) must reproduce the dense-MXU path's loss
+    VJP + packed weights) must reproduce the dense path's loss
     trajectory — two independent aggregation implementations with
     independent adjoints driving the same GRU training dynamics."""
     import dataclasses as _dc
@@ -356,7 +356,8 @@ def test_remat_matches_plain():
 def test_slim_packed_bundle_matches_full(monkeypatch):
     """slim_for_packed (COO/trans_perm/edge-id/raw-weight arrays dropped
     for the packed static-weight path) must not change training or eval
-    — at scale those arrays were ~2.6 GB of dead HBM."""
+    — at products scale those arrays are ~2.6 GB of dead device
+    memory."""
     import numpy as np
 
     import graphaibench_tpu.ops.device_graph as dg_mod

@@ -78,7 +78,7 @@ def test_sssp_pull_asymmetric_weights(graphs):
     """Symmetric STRUCTURE, asymmetric WEIGHTS: w(u->v) != w(v->u).
     Pull-mode relaxation must use the reverse edge's weight (gathered
     through trans_perm) — using the slot's own outgoing weight silently
-    computed wrong distances before round 3 (ADVICE r2, medium)."""
+    computed wrong distances."""
     g, dg = graphs
     rng = np.random.default_rng(7)
     w = (rng.random(g.ne) + 0.1).astype(np.float32)   # per-edge, direction-dependent
@@ -117,8 +117,8 @@ def test_kcore_pull(graphs):
 
 def test_frontier_oracles_at_scale():
     """One mid-scale (rmat12, ~4k v / ~50k e) oracle pass over the
-    integrated auto layout — the scale-regression guard VERDICT r1
-    flagged as missing (a pull-kernel bug visible only on skewed
+    integrated auto layout — the scale-regression guard (a pull-kernel
+    bug visible only on skewed
     many-bucket layouts would pass the rmat8 tests)."""
     g = T.sort_and_clean(T.symmetrize(rmat(12, 12, seed=3)))
     dg = to_device_graph(g, with_transpose=False, with_ell=True)

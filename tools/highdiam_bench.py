@@ -1,11 +1,9 @@
-"""High-diameter frontier ablation (VERDICT r4 item 6: fix or retire
-the losing twins WITH DATA).
+"""High-diameter frontier ablation.
 
-At rmat20 (diameter ~8) hybrid BFS lost to plain (2.53 vs 2.09 s) and
-delta-stepping lost to Bellman-Ford 2x (frontier_20.json): on a dense
-low-diameter graph every sweep is full-width, so bucketing/switching
-pure overhead. Their claimed value is the HIGH-diameter regime — this
-measures exactly that on a side x side grid (diameter 2(side-1)) with
+On a dense low-diameter graph (rmat) every sweep is full-width, so the
+hybrid BFS and delta-stepping only add overhead there. Their claimed
+value is the HIGH-diameter regime — this measures exactly that on a
+side x side grid (diameter 2(side-1)) with
 random [1,2) weights:
 
   bfs          — dense fixpoint (diameter full sweeps)
@@ -55,10 +53,6 @@ def section(name, fn):
 
 
 def main():
-    if os.environ.get("JAX_PLATFORMS"):
-        import jax
-
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
     ap = argparse.ArgumentParser()
     ap.add_argument("--side", type=int, default=512)
     ap.add_argument("--which", default="bfs,sssp")

@@ -28,11 +28,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    if os.environ.get("JAX_PLATFORMS"):
-        import jax
-
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
     from graphaibench_tpu.graph.generators import rmat
     from graphaibench_tpu.graph.io import GnnDataset
     from graphaibench_tpu.nn.layers import ModelConfig
@@ -89,9 +84,8 @@ def main():
             m = None
             gc.collect()
 
-    # sharded trainer at P=1 (the production multi-chip path on one
-    # real chip; <1.0 expected per BASELINE round-2 measurements).
-    # PRODUCTS_SHARDED=0 skips it (single-chip-only ablations).
+    # sharded trainer at P=1 (the production multi-device path on one
+    # device). PRODUCTS_SHARDED=0 skips it (single-chip-only ablations).
     if os.environ.get("PRODUCTS_SHARDED", "1") == "0":
         print(json.dumps({"metric": "products_shaped_epoch_s",
                           "config": f"rmat{scale} ef{ef} symmetrized, "

@@ -1,8 +1,8 @@
 """Slot-padding audit of the segmented layout (host-only, no device).
 
 Counts stored slots vs real edges for the stacked seg-ELL at a given
-scale — the layout's padding tax (round-4: equal-vertex bounds 3.21x,
-equal-edge 1.79x; round-5 grouped stacking targets ~1.1x).
+scale — the layout's padding tax (at rmat20: equal-vertex bounds 3.21x,
+equal-edge 1.79x; grouped stacking targets ~1.1x).
 
   python tools/seg_pad_audit.py [--scale 20] [--ef 32] [--groups 4]
 """
@@ -19,9 +19,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--ef", type=int, default=32)

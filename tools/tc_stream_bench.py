@@ -1,4 +1,4 @@
-"""Streaming-TC-on-compressed memory/speed evidence (VERDICT r4 #8).
+"""Streaming-TC-on-compressed memory/speed evidence.
 
 Runs triangle counting DIRECTLY off a plain-CGR rmat19 stream
 (analytics.tc_stream) and records: triangle agreement vs the
@@ -26,10 +26,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    if os.environ.get("JAX_PLATFORMS"):
-        import jax
-
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=19)
     ap.add_argument("--ef", type=int, default=16)
